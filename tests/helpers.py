@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from raytracing_c_tpu.models.scene import (
+from raytracing_jax.models.scene import (
     Background,
     Camera,
     HostMesh,
@@ -77,7 +77,7 @@ def vec3_of(a):
     """(R, 3) numpy -> Vec3 of (R,) jnp planes (test convenience)."""
     import jax.numpy as jnp
 
-    from raytracing_c_tpu.utils.vec3 import Vec3
+    from raytracing_jax.utils.vec3 import Vec3
 
     a = np.asarray(a, np.float32).reshape(-1, 3)
     return Vec3(

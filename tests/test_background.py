@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from raytracing_c_tpu.io.image_io import write_png
-from raytracing_c_tpu.io.loader import load_scene
-from raytracing_c_tpu.ops.background import eval_background
-from raytracing_c_tpu.utils.color import srgb_to_linear
+from raytracing_jax.io.image_io import write_png
+from raytracing_jax.io.loader import load_scene
+from raytracing_jax.ops.background import eval_background
+from raytracing_jax.utils.color import srgb_to_linear
 
 from helpers import vec3_of
 
@@ -57,7 +57,7 @@ def test_missing_env_map_is_fatal(tmp_path):
 def test_missing_env_map_cli_exit(tmp_path, capsys):
     """CLI surface of the same parity: exit code 1 + the message on
     stderr (driver.c:113-115)."""
-    from raytracing_c_tpu.cli import main
+    from raytracing_jax.cli import main
 
     rc = main(["-W", "8", "-H", "8", "-S", "1",
                "--bg", str(tmp_path / "nope.png"),
@@ -73,7 +73,7 @@ def test_no_bg_flag_uses_constant_sky():
 
 
 def test_miss_rays_collect_env_light(env_scene):
-    from raytracing_c_tpu.render import integrator
+    from raytracing_jax.render import integrator
 
     o = vec3_of([[5, 5, 5]])
     d = vec3_of([[0, 0, 1]])

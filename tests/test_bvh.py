@@ -4,15 +4,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracing_c_tpu import BVH_WIDTH, EPSILON
-from raytracing_c_tpu.models.bvh import (
+from raytracing_jax import BVH_WIDTH, EPSILON
+from raytracing_jax.models.bvh import (
     build_bvh,
     n_internal_nodes,
     n_leaf_nodes,
     partition_count,
     required_depth,
 )
-from raytracing_c_tpu.ops import intersect, traverse
+from raytracing_jax.ops import intersect, traverse
 
 from helpers import random_mesh, random_rays, simple_scene, vec3_of
 
@@ -120,7 +120,7 @@ def test_sah_tree_oracle_exact(rng):
     """The SAH-position tree is image-invariant: traversal over it must
     match the brute-force oracle exactly (the tree is a pure perf lever —
     models/bvh.py module docstring)."""
-    from raytracing_c_tpu.models.scene import pack_triangles, Scene
+    from raytracing_jax.models.scene import pack_triangles, Scene
 
     mesh = random_mesh(700, rng)
     bvh, slot_map, _cap = build_bvh(mesh, sah=True)
@@ -130,8 +130,7 @@ def test_sah_tree_oracle_exact(rng):
     brute = intersect.intersect_bruteforce(o, d, tris)
     ver = traverse.intersect_bvh_verified(o, d, tris, bvh)
     # rtol covers the grazing-hit conditioning class only (brute schedules
-    # the same MT formula differently; see traverse_pallas.py soundness
-    # notes) — hit/miss sets must agree exactly
+    # the same MT formula differently) — hit/miss sets must agree exactly
     np.testing.assert_allclose(
         np.asarray(ver["t"]), np.asarray(brute["t"]), rtol=1e-5
     )

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from raytracing_c_tpu.models.scene import Camera
-from raytracing_c_tpu.render.camera import generate_rays
+from raytracing_jax.models.scene import Camera
+from raytracing_jax.render.camera import generate_rays
 
 
 def _rays(cam, w, h, px, py, jx=0.5, jy=0.5):

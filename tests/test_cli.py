@@ -1,6 +1,6 @@
 """CLI flag surface (reference driver.c:420-508)."""
 
-from raytracing_c_tpu.cli import parse_args
+from raytracing_jax.cli import parse_args
 
 
 def test_reference_flags():
@@ -65,9 +65,9 @@ def test_tonemap_operates_on_float_radiance():
     import jax.numpy as jnp
     import numpy as np
 
-    from raytracing_c_tpu.io.loader import load_scene
-    from raytracing_c_tpu.render.renderer import render
-    from raytracing_c_tpu.utils import color
+    from raytracing_jax.io.loader import load_scene
+    from raytracing_jax.render.renderer import render
+    from raytracing_jax.utils import color
 
     scene = load_scene("/root/reference/models/fov_test.obj",
                        background_path=None, warn=lambda *a: None)

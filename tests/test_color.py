@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from raytracing_c_tpu.utils import color
+from raytracing_jax.utils import color
 
 
 def test_srgb_to_linear_is_reference_pow_curve():

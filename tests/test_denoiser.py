@@ -3,8 +3,9 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from raytracing_c_tpu.ops.denoise import denoise_u8
+from raytracing_jax.ops.denoise import denoise_u8
 
 LUMA = np.array([0.2126, 0.7152, 0.0722])
 
@@ -58,3 +59,25 @@ def test_shape_and_dtype():
     img = np.zeros((8, 8, 3), np.uint8)
     out = np.asarray(denoise_u8(jnp.asarray(img)))
     assert out.shape == (8, 8, 3) and out.dtype == np.uint8
+
+
+def _with_fireflies(img):
+    h, w, _ = img.shape
+    img[h // 3, w // 2] = [255, 255, 255]
+    img[(2 * h) // 3, w // 5] = [250, 255, 240]
+    return img
+
+
+@pytest.mark.parametrize("shape", [(24, 256), (13, 128)])
+def test_wide_images_match_numpy_port(shape, rng):
+    """Frames wider than tall and heights that are not a multiple of 8."""
+    img = _with_fireflies(rng.integers(0, 256, shape + (3,), dtype=np.uint8))
+    got = np.asarray(denoise_u8(jnp.asarray(img)))
+    want = _denoise_numpy(img)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_flat_image_unchanged():
+    img = np.full((16, 128, 3), 77, np.uint8)
+    got = np.asarray(denoise_u8(jnp.asarray(img)))
+    assert (got == 77).all()

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracing_c_tpu.ops import disney
-from raytracing_c_tpu.utils.vec3 import Vec3
+from raytracing_jax.ops import disney
+from raytracing_jax.utils.vec3 import Vec3
 
 from helpers import vec3_of
 
@@ -119,15 +119,15 @@ def test_normal_map_flat_texture_is_identity():
 def test_material_fetch_onehot_matches_gather_fallback():
     """shade()'s one-hot material fetch (tables <= 256 rows) must agree
     bit-for-bit with the large-table row-gather fallback on identical
-    materials — guards the fallback boundary introduced with the MXU
-    material fetch."""
+    materials — guards the fallback boundary of the one-hot material
+    fetch."""
     import numpy as np
     import jax
     import jax.numpy as jnp
 
-    from raytracing_c_tpu.models.scene import MaterialTable, TextureAtlas
-    from raytracing_c_tpu.ops import disney
-    from raytracing_c_tpu.utils.vec3 import Vec3
+    from raytracing_jax.models.scene import MaterialTable, TextureAtlas
+    from raytracing_jax.ops import disney
+    from raytracing_jax.utils.vec3 import Vec3
 
     rng = np.random.default_rng(9)
     R = 64

@@ -6,12 +6,10 @@ discipline). The configs cover the full feature surface: quad (hit/UV
 sanity), fov_test (camera/FOV), spheres (metallic-roughness sweep), helmet
 (textured glTF PBR + denoiser), tower (env-lit path trace + denoiser),
 sheen (the KHR_materials_sheen lobe — /root/reference/models/sheen.glb,
-the reference's sixth graduated test scene, gated since r5 per VERDICT r4
-missing #3).
+the reference's sixth graduated test scene).
 
 Goldens are rendered on the CPU backend at 256px with low spp to bound
-suite time; the TPU-vs-CPU parity gate lives in tools/tpu_parity.py and its
-result table in docs/PERF.md.
+suite time.
 """
 
 import os
@@ -19,8 +17,8 @@ import os
 import numpy as np
 import pytest
 
-from raytracing_c_tpu.io.loader import load_scene
-from raytracing_c_tpu.render.renderer import render
+from raytracing_jax.io.loader import load_scene
+from raytracing_jax.render.renderer import render
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 MODELS = "/root/reference/models"
@@ -42,7 +40,7 @@ def _render_case(model: str, size: int, spp: int, bounces: int,
         scene, size, size, spp=spp, max_bounces=bounces, seed=seed
     )
     if denoise:
-        from raytracing_c_tpu.ops.denoise import denoise_u8
+        from raytracing_jax.ops.denoise import denoise_u8
 
         img = np.asarray(denoise_u8(img))
     return img

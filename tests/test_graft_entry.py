@@ -1,11 +1,12 @@
 """Driver entry points compile and run (single-chip + 8-device CPU mesh)."""
 
+import os
 import sys
 
 import jax
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import __graft_entry__ as ge
 

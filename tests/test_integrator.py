@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracing_c_tpu.models.scene import SHADER_DEBUG_NORMAL
-from raytracing_c_tpu.render import integrator
+from raytracing_jax.models.scene import SHADER_DEBUG_NORMAL
+from raytracing_jax.render import integrator
 
 from helpers import quad_mesh, random_mesh, random_rays, simple_scene, \
     vec3_of
@@ -31,7 +31,7 @@ def test_miss_returns_background():
 
 def test_emissive_hit_accumulates_emission():
     scene = simple_scene(quad_mesh(), bg=BG)
-    from raytracing_c_tpu.utils.vec3 import Vec3
+    from raytracing_jax.utils.vec3 import Vec3
 
     scene = scene.replace(
         materials=scene.materials.replace(
@@ -207,25 +207,55 @@ def test_nee_env_unbiased():
     assert run(True, 0)[1] > run(False, 0)[1]
 
 
-def test_bucketed_tw_deep_identical(monkeypatch):
-    """TW_DEEP (coherence-sorted compaction + tile-wavefront wide
-    branches) must be image-IDENTICAL to the default bucketed path: the
-    slot-keyed RNG is permutation-invariant, so the (grp, octant) sort
-    key only reorders lanes, and every TW hit difference is repaired or
-    within conditioning (bit-equal here on XLA:CPU — the golden
-    contract's scheduling)."""
+def test_bucketed_stack_image_equals_topk():
+    """trace_bucketed with the stack kernel (interpret mode) renders the
+    same image as with the XLA topk traversal: both are exact, and the
+    slot-keyed RNG makes the compaction schedule irrelevant."""
     mesh = random_mesh(900, rng_ := np.random.default_rng(3))
     scene = simple_scene(mesh, bg=(0.7, 0.8, 1.0))
     n = 4096
     o_, d_ = random_rays(n, rng_)
     base, rays0 = integrator.trace_bucketed(
         scene, vec3_of(o_), vec3_of(d_), jax.random.PRNGKey(5), 5,
-        method="pallas_fused")
-    monkeypatch.setattr(integrator, "TW_DEEP", True)
-    deep, rays1 = integrator.trace_bucketed(
+        method="topk")
+    got, rays1 = integrator.trace_bucketed(
         scene, vec3_of(o_), vec3_of(d_), jax.random.PRNGKey(5), 5,
-        method="pallas_fused")
+        method="stack", interpret=True)
     np.testing.assert_array_equal(
-        np.asarray(base.to_array()), np.asarray(deep.to_array())
+        np.asarray(base.to_array()), np.asarray(got.to_array())
     )
     assert float(rays0) == float(rays1)
+
+
+def test_nee_bounce_step_stack_matches_topk():
+    """One NEE bounce (primary + shadow traversal) with the stack kernel
+    equals the topk bounce: the same hits and shadow tests, with hit
+    points equal up to the last bits of t (the two traversals schedule
+    the same Moller-Trumbore differently)."""
+    from raytracing_jax.utils.vec3 import Vec3
+
+    rng_ = np.random.default_rng(8)
+    scene = simple_scene(random_mesh(700, rng_), bg=(0.9, 0.8, 0.7))
+    r = 1024
+    o_, d_ = random_rays(r, rng_)
+    st = {
+        "origin": vec3_of(o_), "direction": vec3_of(d_),
+        "throughput": Vec3.full((r,), 1.0), "radiance": Vec3.zeros((r,)),
+        "active": jnp.ones((r,), bool), "rays": jnp.float32(0.0),
+        "prev_pdf": jnp.full((r,), jnp.inf),
+    }
+    u = jax.random.uniform(jax.random.PRNGKey(2), (4, r), jnp.float32)
+    u2 = jax.random.uniform(jax.random.PRNGKey(3), (3, r), jnp.float32)
+    a = integrator.bounce_step(scene, dict(st), u, method="topk", nee=True,
+                               rand2=u2)
+    b = integrator.bounce_step(scene, dict(st), u, method="stack", nee=True,
+                               rand2=u2, interpret=True)
+    for k in ("origin", "direction", "throughput", "radiance"):
+        np.testing.assert_allclose(np.asarray(a[k].to_array()),
+                                   np.asarray(b[k].to_array()),
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(a["prev_pdf"]),
+                               np.asarray(b["prev_pdf"]), rtol=1e-5)
+    for k in ("active", "rays"):
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+    assert float(a["rays"]) > r  # shadow rays were cast

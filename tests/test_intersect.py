@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from raytracing_c_tpu import EPSILON
-from raytracing_c_tpu.ops.intersect import (
+from raytracing_jax import EPSILON
+from raytracing_jax.ops.intersect import (
     aabb_slab,
     moller_trumbore,
     sphere_hit,
 )
-from raytracing_c_tpu.utils.vec3 import Vec3
+from raytracing_jax.utils.vec3 import Vec3
 
 from helpers import vec3_of
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from raytracing_c_tpu.render.lightmap import bake_lightmap
+from raytracing_jax.render.lightmap import bake_lightmap
 
 from helpers import quad_mesh, simple_scene
 

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from raytracing_c_tpu.io.loader import load_model
-from raytracing_c_tpu.io.obj_loader import load_obj
-from raytracing_c_tpu.io.gltf_loader import load_gltf
+from raytracing_jax.io.loader import load_model
+from raytracing_jax.io.obj_loader import load_obj
+from raytracing_jax.io.gltf_loader import load_gltf
 
 MODELS = "/root/reference/models"
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from raytracing_c_tpu.models import serialization
+from raytracing_jax.models import serialization
 
 from helpers import random_mesh, simple_scene
 
@@ -39,7 +39,7 @@ def test_version_check(tmp_path, rng):
 
 
 def test_loaded_scene_renders_same(tmp_path, rng):
-    from raytracing_c_tpu.render.renderer import render_batch
+    from raytracing_jax.render.renderer import render_batch
 
     scene = simple_scene(random_mesh(64, rng))
     path = str(tmp_path / "scene.npz")

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from raytracing_c_tpu.parallel import mesh as mesh_mod
-from raytracing_c_tpu.render.renderer import render, render_batch
+from raytracing_jax.parallel import mesh as mesh_mod
+from raytracing_jax.render.renderer import render, render_batch
 
 from helpers import random_mesh, simple_scene
 
@@ -45,8 +45,8 @@ def test_sharded_batch_matches_single(scene):
 
 def test_render_with_mesh(scene):
     m = mesh_mod.make_mesh()
-    # dense loop: the sharded render consumes the same GLOBAL RNG stream
-    # (draws happen outside shard_map), so it is bit-identical per shard
+    # dense loop: each device renders whole batches with the single-device
+    # per-batch RNG stream, so the image is bit-identical
     img_m, stats_m = render(
         scene, 24, 16, spp=2, max_bounces=3, seed=5, mesh=m, compact=False
     )
@@ -58,50 +58,39 @@ def test_render_with_mesh(scene):
 
 
 def test_render_with_mesh_compacted(scene):
-    """compact=True under a mesh: per-shard bucket sorts permute the RNG
-    assignment, so agreement is statistical, not bit-wise."""
+    """compact=True under a mesh: each device compacts and renders whole
+    batches with the single-device per-batch keys, so the image is
+    bit-identical to the single-device render."""
     m = mesh_mod.make_mesh()
-    img_m, _ = render(scene, 32, 32, spp=8, max_bounces=4, seed=5, mesh=m)
-    img_s, _ = render(scene, 32, 32, spp=8, max_bounces=4, seed=5)
-    a = img_m.astype(np.float64).mean()
-    b = img_s.astype(np.float64).mean()
-    np.testing.assert_allclose(a, b, rtol=0.02)
+    kw = dict(spp=8, max_bounces=4, seed=5, batch_pixels=128)
+    img_m, st_m = render(scene, 32, 32, mesh=m, **kw)
+    img_s, st_s = render(scene, 32, 32, **kw)
+    np.testing.assert_array_equal(img_m, img_s)
+    assert st_m.rays_traced == st_s.rays_traced
 
 
-def test_render_with_mesh_forest_pallas(scene):
-    """ForestTables under shard_map (VERDICT r3 #4): the re-rooted Pallas
-    traversal (interpret mode on the CPU mesh) must shard like any other
-    method — scene + subtree tables replicated, rays split — and the dense
-    loop stays bit-identical to single-device."""
-    from raytracing_c_tpu.ops import traverse_pallas as tp
-
-    forest = tp.build_forest_host(
-        np.asarray(scene.bvh.nodes),
-        np.asarray(scene.triangles.leaf_rows),
-        scene.bvh.depth,
-        np.asarray(scene.triangles.attr_rows),
-        root_level=1,
-    )
-    scene_f = scene.replace(ptables=forest)
-    assert isinstance(scene_f.ptables, tp.ForestTables)
-    m = mesh_mod.make_mesh()
-    kw = dict(spp=1, max_bounces=2, seed=3, compact=False,
-              method="pallas_fused")
-    img_m, _ = render(scene_f, 16, 16, mesh=m, **kw)
-    img_s, _ = render(scene_f, 16, 16, **kw)
+def test_render_with_mesh4_stack_kernel(scene):
+    """The stack kernel under shard_map on a 4-device mesh (interpret
+    mode): scene replicated, one batch per device; the dense loop stays
+    bit-identical to the single-device render."""
+    m = mesh_mod.make_mesh(jax.devices()[:4])
+    kw = dict(spp=1, max_bounces=2, seed=3, compact=False, method="stack",
+              interpret=True, batch_pixels=64)
+    img_m, _ = render(scene, 16, 16, mesh=m, **kw)
+    img_s, _ = render(scene, 16, 16, **kw)
     np.testing.assert_array_equal(img_m, img_s)
     assert img_m.std() > 0
 
 
 def test_render_with_mesh_nee(scene):
-    """NEE under shard_map: shadow rays + MIS weights ride the per-shard
-    trace; the dense loop slices the GLOBAL nee_uniforms stream, so the
-    sharded image is bit-identical to single-device."""
+    """NEE under shard_map: shadow rays + MIS weights ride the per-device
+    trace with the single-device per-batch streams, so the sharded image
+    is bit-identical to single-device."""
     m = mesh_mod.make_mesh()
     kw = dict(spp=2, max_bounces=3, seed=5, compact=False, nee=True)
     img_m, stats_m = render(scene, 24, 16, mesh=m, **kw)
     img_s, stats_s = render(scene, 24, 16, **kw)
     np.testing.assert_array_equal(img_m, img_s)
-    # NEE's shadow rays are counted on every shard, summed by the psum
+    # NEE's shadow rays are counted per batch on every device
     assert stats_m.rays_traced == stats_s.rays_traced
     assert stats_m.rays_traced > 24 * 16 * 2  # shadow rays present

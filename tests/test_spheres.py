@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracing_c_tpu.models.scene import Spheres
-from raytracing_c_tpu.ops import traverse
-from raytracing_c_tpu.render import integrator
+from raytracing_jax.models.scene import Spheres
+from raytracing_jax.ops import traverse
+from raytracing_jax.render import integrator
 
 from helpers import quad_mesh, simple_scene, vec3_of
 
@@ -44,7 +44,7 @@ def test_sphere_shading_normal():
     d = vec3_of([[0.0, 0.0, -1.0]])
     uni = jax.random.uniform(jax.random.PRNGKey(0), (2, 4, 1))
 
-    from raytracing_c_tpu.models.scene import SHADER_DEBUG_NORMAL
+    from raytracing_jax.models.scene import SHADER_DEBUG_NORMAL
 
     scene = scene.replace(
         materials=scene.materials.replace(
@@ -60,12 +60,9 @@ def test_sphere_shading_normal():
     )
 
 
-def test_fused_attrs_with_sphere_override_bit_identical():
-    """bounce_step(method='pallas_fused') must stay bit-identical to
-    'pallas' on a scene where SPHERE hits override the fused triangle
-    attrs (_gather_hit_geometry's sphere pass)."""
-    from raytracing_c_tpu.utils.vec3 import Vec3
-
+def test_stack_kernel_with_sphere_override():
+    """intersect_scene(method='stack') hands sphere winners to the sphere
+    pass exactly as 'brute' does: same t, same sphere/triangle ids."""
     scene = _scene_with_sphere()
     R = 256
     rng = np.random.default_rng(11)
@@ -75,19 +72,12 @@ def test_fused_attrs_with_sphere_override_bit_identical():
     d[:, 2] = -1.0
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     ov, dv = vec3_of(o), vec3_of(d)
-    st0 = {
-        "origin": ov, "direction": dv,
-        "throughput": Vec3.full((R,), 1.0), "radiance": Vec3.zeros((R,)),
-        "active": jnp.ones((R,), bool), "rays": jnp.float32(0.0),
-    }
-    u = jax.random.uniform(jax.random.PRNGKey(7), (4, R), jnp.float32)
-    a = integrator.bounce_step(scene, dict(st0), u, method="pallas")
-    b = integrator.bounce_step(scene, dict(st0), u, method="pallas_fused")
-    for k in ("origin", "direction", "throughput", "radiance"):
-        for c in "xyz":
-            np.testing.assert_array_equal(
-                np.asarray(getattr(a[k], c)), np.asarray(getattr(b[k], c))
-            )
-    np.testing.assert_array_equal(
-        np.asarray(a["active"]), np.asarray(b["active"])
-    )
+    a = traverse.intersect_scene(scene, ov, dv, method="stack",
+                                 interpret=True)
+    b = traverse.intersect_scene(scene, ov, dv, method="brute")
+    sph = np.asarray(b["sph"])
+    assert (sph >= 0).any() and (np.asarray(b["tri"]) >= 0).any()
+    for k in ("sph", "tri"):
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]),
+                               rtol=1e-6)

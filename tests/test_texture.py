@@ -12,8 +12,8 @@ one-past-a-tile, wide-and-short, and the 1x1 dummy.
 import numpy as np
 import jax.numpy as jnp
 
-from raytracing_c_tpu.io.materials import AtlasBuilder
-from raytracing_c_tpu.ops import texture
+from raytracing_jax.io.materials import AtlasBuilder
+from raytracing_jax.ops import texture
 
 SIZES = [(7, 5), (64, 48), (100, 257), (1, 1), (8, 13), (9, 14), (3, 200)]
 

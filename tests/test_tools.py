@@ -3,9 +3,9 @@
 import os
 import sys
 
-import numpy as np
-
-sys.path.insert(0, "/root/repo/tools")
+sys.path.insert(
+    0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools")
+)
 
 from helpers import random_mesh, simple_scene
 
@@ -36,8 +36,8 @@ def test_bvh_interactive_snapshot(tmp_path, rng):
     scene = simple_scene(random_mesh(200, rng))
     out = str(tmp_path / "snap.png")
     interactive(scene, snapshot=out)
-    from PIL import Image
+    from raytracing_jax.io.image_io import load_image_rgb_u8
 
-    a = np.asarray(Image.open(out))
+    a = load_image_rgb_u8(out)
     assert a.shape == (512, 512, 3)
     assert (a > 0).mean() > 0.001  # wireframes actually drawn

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracing_c_tpu.ops import intersect, traverse
+from raytracing_jax.ops import intersect, traverse
 
 from helpers import random_mesh, random_rays, simple_scene, vec3_of
 

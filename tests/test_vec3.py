@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracing_c_tpu.utils.vec3 import Vec3, vmax, vmin
+from raytracing_jax.utils.vec3 import Vec3, vmax, vmin
 
 from helpers import vec3_of
 
